@@ -3,21 +3,18 @@
 Reports throughput of (a) the sharded product-MLE sum-check round and
 (b) the sharded double-and-add MSM, at mesh sizes 1/2/4/8, with derived
 scaling efficiency (BASELINE north-star shape: ops/s at 1 chip / 1 host /
-N hosts, >=80% target).  Emits SCALING.json with --json.
+N hosts, >=80% target).  Writes a JSON report with --json.
 
-METHODOLOGY CAVEAT (printed into the JSON too): this environment has ONE
-real TPU chip and a 2-core host; the 1/2/4/8-device mesh uses virtual CPU
-devices that share those 2 cores, so compute-bound stages CANNOT show real
-speedup here — the numbers validate that the sharded path's collectives
-and partitioning add little overhead as the mesh grows (throughput should
-stay ~flat on shared cores; on a real pod slice the same program scales
-with the device count because each shard gets its own chip).  The
-communication pattern measured is exactly the one that rides ICI/DCN on
-real hardware: per-round psum for sum-check, all-gather tree reduction for
-MSM.
+METHODOLOGY CAVEAT (printed into the JSON too): on virtual CPU devices
+(XLA_FLAGS=--xla_force_host_platform_device_count=N) the mesh shares the
+host's cores, so compute-bound stages CANNOT show real speedup — the
+numbers validate that the sharded path's collectives and partitioning add
+little overhead as the mesh grows.  On N GPUs each shard gets its own
+card.  The communication pattern measured is the one the cards run:
+per-round psum for sum-check, all-gather tree reduction for MSM.
 
 Usage: python benches/scaling_bench.py [--log-size 14] [--devices 1,2,4,8]
-       [--msm-log-size 10] [--json SCALING.json]
+       [--msm-log-size 10] [--json scaling.json]
 """
 
 from __future__ import annotations
@@ -75,8 +72,8 @@ def main() -> None:
             "backend": jax.default_backend(),
             "physical_cores": os.cpu_count(),
             "note": (
-                "virtual CPU devices sharing one 2-core host: validates "
-                "collective overhead, NOT real multi-chip speedup; see "
+                "virtual CPU devices share the host's cores: validates "
+                "collective overhead, NOT real multi-device speedup; see "
                 "module docstring"
             ),
         },

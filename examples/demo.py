@@ -32,7 +32,7 @@ def field_to_u64(x: Fr) -> int:
 
 
 def main() -> None:
-    print("=== Twist and Shout Demo (tnsh / TPU build) ===\n")
+    print("=== Twist and Shout Demo (tnsh) ===\n")
 
     print("Part 1: Twist — read-write memory checking")
     prover_params, verifier_params = setup_params(4)

@@ -1,16 +1,10 @@
 #!/bin/sh
 # The one-command full test suite: one pytest process PER TEST FILE.
 #
-# jaxlib 0.9's XLA:CPU crashes (SIGSEGV/SIGABRT) compiling or cache-
-# loading a large executable once a single process has accumulated enough
-# compiled programs — 3x-reproduced in round 4's review at
-# test_msm_sched.py:86 and bisected in round 5: the crash follows the
-# CUMULATIVE-EVER compile volume (fr_pallas + jax_backend state killed
-# the scheduled-MSM compile; with msm_sched isolated it re-appeared at
-# test_twist_bits' device-oracle compile).  In-process mitigation
-# (jax.clear_caches at msm-module start) only pushes the threshold out,
-# so the suite runs each file in a fresh process: every file passes
-# solo, and a crash in one file can no longer take down the rest.
+# jaxlib 0.9's XLA:CPU has crashed (SIGSEGV/SIGABRT) compiling or
+# cache-loading a large executable once a single process had accumulated
+# enough compiled programs.  Running each file in a fresh process keeps a
+# crash in one file from taking down the rest; every file passes solo.
 #
 # Usage: ./run_tests.sh [extra pytest args]
 status=0

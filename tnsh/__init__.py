@@ -1,6 +1,7 @@
-"""tnsh — "Twist 'n' Shout" on TPU.
+"""tnsh — "Twist 'n' Shout" in JAX.
 
-A TPU-native (JAX/XLA/Pallas) zk-SNARK memory-checking framework with the
+A zk-SNARK memory-checking framework (JAX/XLA and Pallas on the GPU, a C++
+host layer) with the
 capabilities of the reference Rust crate ``twist-and-shout``
 (vats98754/multilinear-map-cryptography): the Twist (read-write memory
 checking) and Shout (read-only lookup) protocols over multilinear

@@ -1,9 +1,13 @@
 """ctypes loader for the tnsh native host layer (tnsh_native.cpp).
 
-Compiles the shared library with g++ on first import if it is missing or
-stale, then exposes typed wrappers over the C ABI.  Everything degrades
-gracefully: if the toolchain or build is unavailable, ``available`` is False
-and callers fall back to the pure-Python golden path.
+Compiles the shared library with g++ on first import, then exposes typed
+wrappers over the C ABI.  The library is built from the committed source
+into ``build/`` (listed in .gitignore) under a name keyed by a hash of the
+source, the compile flags and the host CPU: ``-march=native`` code built
+on one machine is never loaded on another, and a changed source always
+rebuilds.  The build counts as set-up time.  If the toolchain or build is
+unavailable, ``available`` is False and callers fall back to the
+pure-Python golden path.
 
 ABI conventions: 32-byte little-endian field elements; affine G1 points are
 64 bytes (x || y), affine G2 points 128 bytes (x.c0 || x.c1 || y.c0 || y.c1);
@@ -13,44 +17,68 @@ the all-zero point is the identity.
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
+import sys
 from typing import List, Optional, Sequence, Tuple
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "tnsh_native.cpp")
-_LIB = os.path.join(_DIR, "libtnsh_native.so")
+_BUILD_DIR = os.path.join(_DIR, "build")
+_FLAGS = ["-O3", "-march=native", "-funroll-loops", "-fopenmp",
+          "-shared", "-fPIC"]
 
 _lib: Optional[ctypes.CDLL] = None
 available = False
 
 
-def _build() -> bool:
+def _cpu_id() -> bytes:
+    """The host CPU's model and feature flags (what -march=native reads)."""
     try:
-        subprocess.run(
-            ["g++", "-O3", "-march=native", "-funroll-loops", "-fopenmp",
-             "-shared", "-fPIC", "-o", _LIB, _SRC],
-            check=True,
-            capture_output=True,
-            timeout=300,
-        )
+        with open("/proc/cpuinfo", "rb") as f:
+            lines = [ln for ln in f.read().splitlines()
+                     if ln.startswith((b"model name", b"flags"))]
+        return b"\n".join(sorted(set(lines)))
+    except OSError:
+        import platform
+
+        return platform.processor().encode()
+
+
+def lib_path(source: bytes) -> str:
+    """Build-cache path of the library compiled from ``source`` here."""
+    h = hashlib.sha256(source)
+    h.update(" ".join(_FLAGS).encode())
+    h.update(_cpu_id())
+    return os.path.join(_BUILD_DIR, f"libtnsh_native-{h.hexdigest()[:16]}.so")
+
+
+def _build(lib: str) -> bool:
+    """Compile to a private temporary name, then rename into place, so a
+    concurrent importer never loads a half-written library."""
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    tmp = f"{lib}.{os.getpid()}.tmp"
+    try:
+        subprocess.run(["g++", *_FLAGS, "-o", tmp, _SRC],
+                       check=True, capture_output=True, timeout=600)
+        os.replace(tmp, lib)
         return True
-    except Exception:
+    except (OSError, subprocess.SubprocessError):
         return False
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
 
 
 def _load() -> None:
     global _lib, available
-    needs_build = not os.path.exists(_LIB) or (
-        os.path.exists(_SRC)
-        and os.path.getmtime(_SRC) > os.path.getmtime(_LIB)
-    )
-    if needs_build and not _build():
-        # Never run a stale library against newer sources: a silent
-        # fallback here once masked a compile error and segfaulted on
-        # ABI-mismatched calls.  Loudly refuse instead.
-        import sys
-
+    try:
+        with open(_SRC, "rb") as f:
+            lib_file = lib_path(f.read())
+    except OSError:
+        return
+    if not os.path.exists(lib_file) and not _build(lib_file):
         print(
             "tnsh._native: compile of tnsh_native.cpp FAILED; "
             "falling back to pure Python (run g++ manually for the error)",
@@ -58,7 +86,7 @@ def _load() -> None:
         )
         return
     try:
-        lib = ctypes.CDLL(_LIB)
+        lib = ctypes.CDLL(lib_file)
     except OSError:
         return
     lib.tnsh_native_version.restype = ctypes.c_int

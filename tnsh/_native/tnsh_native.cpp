@@ -3420,7 +3420,7 @@ void srs_get_point(int id, size_t idx, uint8_t *out) {
     limbs_to_bytes(out + 32, s);
 }
 
-// Per-(chunk, window, |digit|) occupancy counts for the TPU MSM planner.
+// Per-(chunk, window, |digit|) occupancy counts for the device MSM planner.
 // d: (w_count, n_pad) row-major int8 signed digits; out: zero-initialized
 // (n_pad/m, w_count, 129) int32 counts.  (numpy bincount measured ~4 M/s on
 // this host — this loop is memory-bound at GB/s.)
@@ -3444,7 +3444,7 @@ void msm_digit_counts(const int8_t *d, size_t w_count, size_t n_pad,
 
 // Bulk export of SRS points [start, start+count) as standard-form affine
 // bytes (64 B per point, identity = all-zero).  One call replaces count
-// srs_get_point round-trips; feeds the TPU MSM's device-resident planes.
+// srs_get_point round-trips; feeds the device MSM's resident planes.
 void srs_export_affine(int id, size_t start, size_t count, uint8_t *out) {
     if (id < 0 || id >= (int)g_srs_store.size()) return;
     const std::vector<AffinePt> &all = g_srs_store[id];

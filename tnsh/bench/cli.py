@@ -152,4 +152,7 @@ def _run_sound_modes(mode: str, min_log: int, max_log: int,
 
 
 if __name__ == "__main__":
+    from ..core.device import setup_compile_cache
+
+    setup_compile_cache()
     raise SystemExit(main())

@@ -25,7 +25,7 @@ class TnshConfig:
     #: Use the C++ native host kernels when available (cargo feature
     #: ``parallel``/arkworks analog).  Env: TNSH_NO_NATIVE=1 disables.
     use_native: bool = True
-    #: Use the JAX/TPU limb kernels for large-size proving paths.
+    #: Use the JAX device limb kernels for large-size proving paths.
     use_jax: bool = True
     #: Mesh axis sizes for multi-chip runs, e.g. (8,) for 1-D data sharding.
     mesh_shape: Tuple[int, ...] = (1,)

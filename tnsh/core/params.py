@@ -8,10 +8,11 @@ powers of tau ``[tau^i]_1`` for ``i = 0..=max_degree`` with
 ``max_operations = 2^(log_size + 2)`` (utils.rs:80, 89), ``[tau]_2``, and a
 32-byte Fiat-Shamir seed drawn from the same RNG stream (utils.rs:100-102).
 
-TPU note: the values of ``g1_powers`` are mathematically fixed (tau^i * G),
-so the host computes tau-powers in Fr and uses a fixed-base windowed
-multiplier; the JAX/Pallas MSM layer (tnsh.commit.msm_jax) consumes these
-points in limb form for proving-time commitments.
+Device note: the values of ``g1_powers`` are mathematically fixed
+(tau^i * G), so the host computes tau-powers in Fr and uses a fixed-base
+windowed multiplier; the device MSMs (tnsh.commit.msm_sched,
+tnsh.commit.msm_jax) consume these points in limb form for proving-time
+commitments.
 """
 
 from __future__ import annotations

@@ -10,10 +10,8 @@ Exact integer arithmetic means every algorithmic re-design downstream
 Pippenger MSM) yields bit-identical field values to the reference — algorithmic
 freedom without transcript divergence.
 
-The TPU-side representation (limb planes, Montgomery form) lives in
+The device-side representation (limb planes, Montgomery form) lives in
 ``tnsh.field.fr_jax``; conversion helpers are in ``tnsh.field.limbs``.
-(A Pallas variant was measured at 0.5x the XLA kernel and removed —
-PERF_NOTES round-2 finding 6.)
 
 arkworks-compat facts encoded here:
   * ``MODULUS`` is the BN254 (alt_bn128) scalar prime r.

@@ -1,4 +1,4 @@
-"""Limb representation of 254-bit field elements for TPU kernels.
+"""Limb representation of 254-bit field elements for device kernels.
 
 This is the data-layout half of the arkworks-replacement layer (SURVEY §7.0
 "Field layer first, as data layout + kernels, not a class").  Design:
@@ -9,12 +9,12 @@ This is the data-layout half of the arkworks-replacement layer (SURVEY §7.0
       - limb product < 2^24,
       - full-product column: <= 22 products  -> < 2^28.5,
       - reduction adds <= 22 more 24-bit terms + carries -> < 2^30.2.
-    No uint tricks, no 64-bit emulation — pure int32 VPU arithmetic.
-  * **Limb-major layout ``(L, *batch)``**: the batch dimension lands in TPU
-    lanes (the fast axis), limbs in sublanes; every field op is then a
-    22-plane elementwise computation at full lane utilization.
+    No uint tricks, no 64-bit emulation — pure int32 arithmetic.
+  * **Limb-major layout ``(L, *batch)``**: the batch dimension is the fast,
+    contiguous axis; every field op is then a 22-plane elementwise
+    computation over the batch.
   * **Montgomery form** with R = 2^264.  Host <-> device conversion helpers
-    round-trip through Python ints (exact).
+    go through 32-byte little-endian words (exact).
 
 Both BN254 moduli share the layout; ``FR_SPEC`` / ``FQ_SPEC`` carry the
 per-field constants.  The compute kernels live in ``tnsh.field.fr_jax``.
@@ -98,14 +98,25 @@ def pack_ints(values: Sequence[int], spec: FieldSpec, montgomery: bool = True
 
     With ``montgomery=True`` (default for compute), stores v * R mod p.
     """
-    out = np.zeros((NUM_LIMBS, len(values)), dtype=np.int32)
     p = spec.modulus
-    for j, v in enumerate(values):
-        v = int(v) % p
-        if montgomery:
-            v = v * R_LIMB % p
-        for i in range(NUM_LIMBS):
-            out[i, j] = (v >> (LIMB_BITS * i)) & LIMB_MASK
+    r = R_LIMB % p if montgomery else 1
+    data = b"".join((int(v) * r % p).to_bytes(32, "little") for v in values)
+    return bytes_to_limb_planes(
+        np.frombuffer(data, dtype=np.uint8).reshape(-1, 32))
+
+
+def bytes_to_limb_planes(b: np.ndarray) -> np.ndarray:
+    """(n, 32) uint8 little-endian values -> (NUM_LIMBS, n) int32 limb
+    planes (no Montgomery conversion)."""
+    n = b.shape[0]
+    padded = np.zeros((n, 34), dtype=np.uint8)
+    padded[:, :32] = b
+    u = padded.astype(np.uint32)
+    out = np.empty((NUM_LIMBS, n), dtype=np.int32)
+    for i in range(NUM_LIMBS):
+        b0, off = (LIMB_BITS * i) // 8, (LIMB_BITS * i) % 8
+        v = (u[:, b0] | (u[:, b0 + 1] << 8) | (u[:, b0 + 2] << 16)) >> off
+        out[i] = (v & LIMB_MASK).astype(np.int32)
     return out
 
 

@@ -85,8 +85,11 @@ class TwistBitsSparseOracle:
         self._challenges: List[Fr] = []
         t_size = 1 << log_t
         self._tbk = None
-        if (not os.environ.get("TNSH_NO_NATIVE")
-                and not os.environ.get("TNSH_BITS_FORCE_JAX")):
+        # TNSH_BITS_FORCE_JAX: the j phase runs on the device oracle
+        # (JaxSopOracleD); the k phase stays native when available, and
+        # the Python state below is kept to build the device delegate.
+        self._device_j = bool(os.environ.get("TNSH_BITS_FORCE_JAX"))
+        if not os.environ.get("TNSH_NO_NATIVE"):
             from .. import _native
 
             if _native.available:
@@ -101,7 +104,8 @@ class TwistBitsSparseOracle:
                     log_k, log_t, ra, wa, ot, ot, rv, wv, ic,
                     eq1, eqs_j, eqb, eqs_k, alpha_powers, kinv, degree + 1,
                 )
-                return
+                if not self._device_j:
+                    return
         as_int = lambda tab: [int(v) % _P for v in tab]
         self._ot = as_int(ot)
         self._rv = as_int(rv)
@@ -319,12 +323,19 @@ class TwistBitsSparseOracle:
 
                 _native.tbk_bind(self._tbk, challenge)
                 if self._round == self.log_k - 1:
-                    from .sumcheck_d import NativeSopOracleD
+                    if self._device_j:
+                        # replay the k binds on the Python state, then
+                        # build the device delegate from it
+                        for c in self._challenges:
+                            self._k_bind(c)
+                        self._build_delegate()
+                    else:
+                        from .sumcheck_d import NativeSopOracleD
 
-                    self._delegate = NativeSopOracleD._from_handle(
-                        self.log_t, _native.tbk_make_sopd(self._tbk),
-                        self.degree,
-                    )
+                        self._delegate = NativeSopOracleD._from_handle(
+                            self.log_t, _native.tbk_make_sopd(self._tbk),
+                            self.degree,
+                        )
             else:
                 self._k_bind(challenge)
                 if self._round == self.log_k - 1:

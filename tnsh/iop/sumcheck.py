@@ -14,7 +14,7 @@ prover generalized into *oracles* (SURVEY §7.0 "Sum-check engine"):
     the MLE tables.
   * ``ProductMLEOracle`` — product of MLE factors evaluated by table folding:
     O(2^n) per round instead of the reference's O(4^n)-ish re-evaluation.
-    This powers sound-mode constraints and the TPU-sharded prover
+    This powers sound-mode constraints and the device-sharded prover
     (tnsh.parallel.mesh folds shard-locally and psums round evaluations).
 
 Round polynomials are degree-<=3 univariates represented by 4 coefficients,
@@ -306,7 +306,7 @@ class SumOfProductsOracle(SumcheckOracle):
 
 
 class JaxSumOfProductsOracle(SumcheckOracle):
-    """TPU-backed sum-of-products oracle (tnsh.poly.mle_jax kernels).
+    """Device-backed sum-of-products oracle (tnsh.poly.mle_jax kernels).
 
     Device twin of ``SumOfProductsOracle`` for the verifier-enforced
     sound-mode constraint sum-checks: tables live on device as limb
@@ -378,7 +378,7 @@ class JaxSumOfProductsOracle(SumcheckOracle):
 
 
 class JaxProductMLEOracle(SumcheckOracle):
-    """TPU-backed product-of-MLEs oracle (tnsh.poly.mle_jax kernels).
+    """Device-backed product-of-MLEs oracle (tnsh.poly.mle_jax kernels).
 
     Same math as ``ProductMLEOracle`` — fold-based linear-time rounds — but
     the tables live on device as limb planes and each round is one fused

@@ -13,9 +13,6 @@ SURVEY §7.0 "Interpolation"):
     (``vector_to_polynomial``, reference twist.rs:307-316, shout.rs:277-286)
     specialized to the domain {0, 1, ..., n-1}: divided-difference
     denominators are the small integers (j - i), batch-inverted once.
-
-The TPU-side batched interpolation (inverse-Vandermonde matmul on the MXU)
-lives in ``tnsh.poly.interp_jax`` and is validated against this host path.
 """
 
 from __future__ import annotations

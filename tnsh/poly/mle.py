@@ -11,7 +11,7 @@ O(4^n) naivete designed out (SURVEY §7.0):
 Bit order matches the reference exactly: index bit j (little-endian) is
 variable j, so variable 0 is the *fastest-varying* index bit
 (polynomials.rs:108-122).  Folding variable 0 therefore combines adjacent
-pairs (stride-2 view); this is the convention every TPU kernel in
+pairs (stride-2 view); this is the convention every device kernel in
 ``tnsh.poly.mle_jax`` and the sharded sum-check must preserve for transcript
 compatibility.
 

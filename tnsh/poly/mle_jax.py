@@ -1,6 +1,6 @@
-"""MLE evaluation-table kernels on limb planes (TPU path).
+"""MLE evaluation-table kernels on limb planes (device path).
 
-TPU-side twin of ``tnsh.poly.mle`` (SURVEY §7.0 "MLE as a sharded dense eval
+Device-side twin of ``tnsh.poly.mle`` (SURVEY §7.0 "MLE as a sharded dense eval
 table").  Tables are ``(22, N)`` int32 Fr limb planes (Montgomery,
 2p-domain); index bit j of a lane is variable j, little-endian, matching the
 reference's convention (polynomials.rs:108-122) exactly.
@@ -30,12 +30,14 @@ from typing import List, Sequence, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
+from jax import lax
 
 from ..field.fr import Fr
 from ..field.fr_jax import fr_ops
-from ..field.limbs import FR_SPEC, pack_ints, unpack_ints
+from ..field.limbs import FR_SPEC, NUM_LIMBS, pack_ints, unpack_ints
 
 fr = fr_ops
+L = NUM_LIMBS
 
 
 def pack_mle(evaluations: Sequence[Fr]) -> np.ndarray:
@@ -115,7 +117,7 @@ def sum_of_products_round_evals(
 ) -> jnp.ndarray:
     """[g(0..3)] for f = Σ_t coeff_t * Π_{f in term_t} T_f -> (22, 4).
 
-    The TPU oracle behind the verifier-enforced sound-mode constraints
+    The device oracle behind the verifier-enforced sound-mode constraints
     (tnsh.protocols.sound): per lane pair the four X-point values are
     computed ONCE per distinct table, then combined per term and
     accumulated before a single tree sum.  ``term_idxs`` is static
@@ -149,88 +151,98 @@ def sum_of_products_round_evals_d(
 ) -> jnp.ndarray:
     """[g(0..npts-1)] for a GENERIC-DEGREE sum of products -> (22, npts).
 
-    The TPU oracle behind the bit-column protocols (tnsh.protocols.
+    The device oracle behind the bit-column protocols (tnsh.protocols.
     twist_bits): identical structure to ``sum_of_products_round_evals``
     but with ``npts`` X-points per pair (round degree npts-1), extended
-    incrementally (v_{x+1} = v_x + d costs one add)."""
-    vals = []
-    for t in tables:
-        lo = t[:, 0::2]
-        hi = t[:, 1::2]
-        d = fr.sub(hi, lo)
-        xs = [lo, hi]
-        cur = hi
-        for _ in range(npts - 2):
-            cur = fr.add(cur, d)
-            xs.append(cur)
-        vals.append(jnp.concatenate(xs, axis=1))  # (L, npts*half)
-    acc = None
-    for coeff, idxs in zip(coeffs, term_idxs):
-        prods = vals[idxs[0]]
-        for f in idxs[1:]:
-            prods = fr.mont_mul(prods, vals[f])
-        prods = fr.mont_mul(jnp.broadcast_to(coeff, prods.shape), prods)
-        acc = prods if acc is None else fr.add(acc, prods)
-    half = acc.shape[1] // npts
-    sums = [sum_tree(acc[:, k * half:(k + 1) * half]) for k in range(npts)]
-    return jnp.concatenate(sums, axis=1)  # (L, npts)
+    incrementally (v_{x+1} = v_x + d costs one add).
+
+    The tables are stacked and every repeated step is a ``fori_loop``, so
+    the program holds one field multiply per distinct term degree: XLA's
+    GPU compile time grows with the number of multiply instances in the
+    program, not with the trip count."""
+    return sop_d_round_evals_stacked(jnp.stack(tables), jnp.stack(coeffs),
+                                     term_idxs, npts)
 
 
-_sop_round_evals_d_jit_xla = jax.jit(
-    sum_of_products_round_evals_d, static_argnums=(2, 3)
-)
+def sop_d_round_evals_stacked(stacked, coeff_arr, term_idxs, npts: int):
+    """:func:`sum_of_products_round_evals_d` over tables stacked as
+    (F, 22, N) and coefficients as (terms, 22, 1)."""
+    n_tab = stacked.shape[0]
+    half = stacked.shape[2] // 2
 
+    def flat(v):  # (F, L, half) -> (L, F*half)
+        return v.transpose(1, 0, 2).reshape(L, n_tab * half)
 
-def sum_of_products_round_evals_d_jit(tables, coeffs, term_idxs,
-                                      npts) -> jnp.ndarray:
-    from ..field import fr_pallas
+    def unflat(v):  # (L, F*half) -> (F, L, 1, half)
+        return v.reshape(L, n_tab, half).transpose(1, 0, 2)[:, :, None, :]
 
-    if fr_pallas.enabled() and fr_pallas.can_round(tables[0].shape[1]):
-        return fr_pallas.sum_of_products_round_evals(
-            tables, coeffs, term_idxs, npts
-        )
-    return _sop_round_evals_d_jit_xla(tables, coeffs, term_idxs, npts)
+    lo = flat(stacked[:, :, 0::2])
+    hi = flat(stacked[:, :, 1::2])
+    d = fr.sub(hi, lo)
+    vals = jnp.zeros((n_tab, L, npts, half), jnp.int32)
+    vals = lax.dynamic_update_slice_in_dim(vals, unflat(lo), 0, axis=2)
+    vals = lax.dynamic_update_slice_in_dim(vals, unflat(hi), 1, axis=2)
+
+    def extend(x, st):
+        cur, vals = st
+        cur = fr.add(cur, d)
+        return cur, lax.dynamic_update_slice_in_dim(vals, unflat(cur), x,
+                                                    axis=2)
+
+    _, vals = lax.fori_loop(2, npts, extend, (hi, vals))
+    vals = vals.reshape(n_tab, L, npts * half)  # x-major lane blocks
+
+    acc = jnp.zeros((L, npts * half), jnp.int32)
+    by_degree = {}
+    for t, idxs in enumerate(term_idxs):
+        by_degree.setdefault(len(idxs), []).append(t)
+    for degree, terms in sorted(by_degree.items()):
+        factors = jnp.asarray(
+            np.asarray([term_idxs[t] for t in terms], dtype=np.int32))
+        cs = coeff_arr[np.asarray(terms)]
+
+        def term_body(i, acc, factors=factors, cs=cs, degree=degree):
+            row = factors[i]
+
+            def mul(j, prods):
+                return fr.mont_mul(prods, vals[row[j]])
+
+            prods = lax.fori_loop(1, degree, mul, vals[row[0]])
+            prods = fr.mont_mul(jnp.broadcast_to(cs[i], prods.shape), prods)
+            return fr.add(acc, prods)
+
+        acc = lax.fori_loop(0, len(terms), term_body, acc)
+
+    acc = acc.reshape(L, npts, half)
+    while half > 1:
+        half //= 2
+        acc = fr.add(acc[:, :, :half].reshape(L, npts * half),
+                     acc[:, :, half:].reshape(L, npts * half)
+                     ).reshape(L, npts, half)
+    return acc.reshape(L, npts)
 
 
 # jitted wrappers (shapes cached by XLA)
-_fold_jit_xla = jax.jit(fold)
+fold_jit = jax.jit(fold)
 sum_tree_jit = jax.jit(sum_tree)
-_product_round_evals_jit_xla = jax.jit(product_round_evals)
-_sop_round_evals_jit_xla = jax.jit(
+product_round_evals_jit = jax.jit(product_round_evals)
+sum_of_products_round_evals_jit = jax.jit(
     sum_of_products_round_evals, static_argnums=(2,)
+)
+sum_of_products_round_evals_d_jit = jax.jit(
+    sum_of_products_round_evals_d, static_argnums=(2, 3)
+)
+sop_d_round_evals_stacked_jit = jax.jit(
+    sop_d_round_evals_stacked, static_argnums=(2, 3)
 )
 
 
-# Routed entry points: on TPU backends large tables run the VMEM-resident
-# Pallas kernels (tnsh.field.fr_pallas — the XLA CIOS chain round-trips
-# HBM and sustains ~54 M muls/s vs Pallas's ~230 M, PERF_NOTES round-3
-# finding 9); small/odd shapes and CPU keep the XLA path.  Both are
-# exact, so proofs are identical either way.
-
-def fold_jit(table: jnp.ndarray, r: jnp.ndarray) -> jnp.ndarray:
-    from ..field import fr_pallas
-
-    if fr_pallas.enabled() and fr_pallas.can_fold(table.shape[1]):
-        return fr_pallas.fold(table, r)
-    return _fold_jit_xla(table, r)
-
-
-def product_round_evals_jit(tables, scale=None) -> jnp.ndarray:
-    from ..field import fr_pallas
-
-    if fr_pallas.enabled() and fr_pallas.can_round(tables[0].shape[1]):
-        return fr_pallas.product_round_evals(tables, scale)
-    return _product_round_evals_jit_xla(tables, scale)
-
-
-def sum_of_products_round_evals_jit(tables, coeffs, term_idxs) -> jnp.ndarray:
-    from ..field import fr_pallas
-
-    if fr_pallas.enabled() and fr_pallas.can_round(tables[0].shape[1]):
-        return fr_pallas.sum_of_products_round_evals(
-            tables, coeffs, term_idxs
-        )
-    return _sop_round_evals_jit_xla(tables, coeffs, term_idxs)
+@jax.jit
+def fold_stacked(stacked, r):
+    """Fold every table of an (F, 22, N) stack at r, keeping the length:
+    lanes [0, N/2) hold the folded tables, lanes [N/2, N) zeros."""
+    folded = jax.vmap(fold, in_axes=(0, None))(stacked, r)
+    return jnp.concatenate([folded, jnp.zeros_like(folded)], axis=2)
 
 
 @jax.jit

@@ -236,7 +236,7 @@ class Shout:
                 err.append(Fr(0))
         mle = MultilinearExtension.from_evaluations_vec(log_lookups, err)
         # NOTE: the host oracle is O(n) total for this degree-1 single-factor
-        # sum-check and avoids per-round-shape XLA recompiles; the TPU oracle
+        # sum-check and avoids per-round-shape XLA recompiles; the device oracle
         # (JaxProductMLEOracle) pays off for multi-factor constraints and is
         # available by explicit injection.
         return ProductMLEOracle([mle])

@@ -296,7 +296,7 @@ class Twist:
         The oracle is the MLE of err_val + err_ord; sum-check proves
         Σ err = 0 with an honest polynomial rather than the reference's
         hardwired zero closure (twist.rs:186-214).  Large instances run the
-        rounds on the TPU oracle.
+        rounds on the device oracle.
         """
         from ..poly.lt import LessThanPolynomial
 
@@ -330,7 +330,7 @@ class Twist:
                 err.append(e)
         mle = MultilinearExtension.from_evaluations_vec(log_ops, err)
         # NOTE: the host oracle is O(n) total for this degree-1 single-factor
-        # sum-check and avoids per-round-shape XLA recompiles; the TPU oracle
+        # sum-check and avoids per-round-shape XLA recompiles; the device oracle
         # (JaxProductMLEOracle) pays off for multi-factor constraints and is
         # available by explicit injection.
         return ProductMLEOracle([mle])

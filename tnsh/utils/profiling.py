@@ -1,13 +1,13 @@
 """Profiling and tracing utilities.
 
-TPU-native replacement for the reference's wall-clock-only instrumentation
+Device-aware replacement for the reference's wall-clock-only instrumentation
 (SURVEY §5 tracing row; benchmarks.rs:78-111 phase timers):
 
   * ``PhaseTimer`` — named phase accounting with honest device fencing:
     every phase exit calls ``jax.block_until_ready`` on pending device
     values registered via ``fence()``.
   * ``trace()`` — context manager around ``jax.profiler.trace`` emitting a
-    TensorBoard-compatible trace directory for per-kernel TPU timelines.
+    TensorBoard-compatible trace directory for per-kernel device timelines.
   * ``phase_report()`` — JSON-friendly summary consumed by the bench
     harness.
 """
